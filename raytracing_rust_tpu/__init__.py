@@ -1,11 +1,12 @@
-"""raytracing_rust_tpu — a TPU-native differentiable Monte Carlo path tracer.
+"""raytracing_rust_tpu — a differentiable Monte Carlo path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the feature set of
 DrStiev/raytracing_rust (a CPU Rust "Ray Tracing in One Weekend / The Next
 Week" renderer): batched wavefront integration instead of scalar recursion,
 flat SoA scene tables instead of trait objects, counter-based stateless RNG
 instead of thread_rng, `jax.grad`-able shading throughout, and
-`jax.sharding`-based multi-chip/multi-host scaling.
+`jax.sharding`-based multi-device/multi-host scaling, and Pallas
+(Triton-route) kernels for CUDA GPUs.
 """
 
 from .models.scene import SceneBuilder, SceneTables, BG_BLACK, BG_SKY

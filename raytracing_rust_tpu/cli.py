@@ -18,7 +18,7 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="raytracing_rust_tpu",
-        description="TPU-native differentiable Monte Carlo path tracer")
+        description="Differentiable Monte Carlo path tracer (JAX)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("render", help="render a scene preset")
@@ -35,14 +35,15 @@ def main(argv=None) -> int:
                    help="shard over all visible devices")
     r.add_argument("--engine", choices=["auto", "xla", "pallas"],
                    default="auto",
-                   help="auto = Pallas megakernel when the scene supports "
-                        "it, else the XLA wavefront tier")
+                   help="auto = the GPU kernel when a GPU is present and "
+                        "the scene is supported, else the XLA wavefront "
+                        "tier; pallas = the GPU kernel or an error")
     r.add_argument("--bvh", action="store_true",
                    help="use the flat BVH in the XLA tier (reference "
                         "src/bvh.rs analogue)")
     r.add_argument("--checkpoint", default=None,
                    help=".npz path for resumable rendering (both the "
-                        "XLA tier and the megakernel)")
+                        "XLA tier and the GPU kernel)")
     r.add_argument("--rr-depth", type=int, default=None,
                    help="start Russian roulette at this bounce (opt-in, "
                         "unbiased; the reference always runs to the cap)")
@@ -63,7 +64,10 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
 
+    from .backend import gpu_kernels, init_compile_cache
     from .models.builders import PRESETS
+
+    init_compile_cache()
 
     if args.cmd == "scenes":
         for name, p in PRESETS.items():
@@ -130,62 +134,44 @@ def main(argv=None) -> int:
     t0 = time.time()
     try:
         if args.sharded:
+            engine = "xla_sharded"
             from .parallel.sharding import make_mesh, render_sharded
             img = render_sharded(scene, cam, nx, ny, spp, make_mesh(),
                                  seed=args.seed, max_depth=args.max_depth,
                                  rr_depth=args.rr_depth, progress=progress,
                                  timers=timers)
         else:
-            img = None
-            use_pallas = args.engine == "pallas"
-            if use_pallas:
-                import jax
-                if not any(d.platform == "tpu" for d in jax.devices()):
-                    # fail with one clear line, not a Mosaic lowering
-                    # crash (the core PRNG has no CPU lowering)
-                    print("--engine pallas requires a TPU "
-                          "(the megakernel uses the TPU core PRNG)",
+            from .render import render, render_auto
+            kw = dict(seed=args.seed, max_depth=args.max_depth,
+                      rr_depth=args.rr_depth, checkpoint=args.checkpoint,
+                      timers=timers, progress=progress)
+            if args.engine == "pallas":
+                if not gpu_kernels():
+                    # one clear line; the kernel never drops to interpret
+                    # mode or to the XLA tier
+                    print("--engine pallas requires a CUDA GPU "
+                          "(the kernel is compiled by Triton)",
                           file=sys.stderr)
                     return 2
-            if args.engine == "auto":
-                # the megakernel needs the TPU core PRNG — no CPU lowering
-                import jax
-                use_pallas = any(d.platform == "tpu"
-                                 for d in jax.devices())
-            if args.bvh and use_pallas:
-                # the flat BVH is an XLA-tier feature (the megakernel
-                # scans primitives without one); honor the request
-                # rather than silently dropping it. --checkpoint works
-                # on BOTH tiers since round 5.
-                if args.engine == "pallas":
-                    print("--bvh requires the xla engine",
-                          file=sys.stderr)
+                if args.bvh:
+                    # the flat BVH is an XLA-tier feature (the kernel
+                    # scans primitives without one)
+                    print("--bvh requires the xla engine", file=sys.stderr)
                     return 2
-                log.write("--bvh requested; using the xla tier")
-                use_pallas = False
-            if use_pallas:
-                from .ops.pallas_tracer import (UnsupportedScene,
-                                                render_pallas)
+                from .ops.pallas_tracer import UnsupportedScene, render_pallas
                 try:
-                    img = render_pallas(scene, cam, nx, ny, spp,
-                                        seed=args.seed,
-                                        max_depth=args.max_depth,
-                                        rr_depth=args.rr_depth,
-                                        checkpoint=args.checkpoint,
-                                        timers=timers, progress=progress)
+                    img, engine = render_pallas(scene, cam, nx, ny, spp,
+                                                **kw), "pallas"
                 except UnsupportedScene as e:
-                    if args.engine == "pallas":
-                        print(f"pallas engine: {e}", file=sys.stderr)
-                        return 2
-                    log.write(f"pallas unsupported ({e}); "
-                              "falling back to xla")
-            if img is None:
-                from .render import render
-                img = render(scene, cam, nx, ny, spp, seed=args.seed,
-                             max_depth=args.max_depth, progress=progress,
-                             use_bvh=args.bvh or None,  # False → auto
-                             checkpoint=args.checkpoint,
-                             rr_depth=args.rr_depth, timers=timers)
+                    print(f"pallas engine: {e}", file=sys.stderr)
+                    return 2
+            elif args.engine == "xla" or args.bvh:
+                img, engine = render(scene, cam, nx, ny, spp,
+                                     use_bvh=args.bvh or None,  # False → auto
+                                     **kw), "xla"
+            else:
+                img, engine = render_auto(scene, cam, nx, ny, spp, **kw)
+            log.write(f"engine={engine}")
     finally:
         dt = time.time() - t0
         if profiler:
@@ -202,7 +188,7 @@ def main(argv=None) -> int:
             image_io.write_ppm(out, img)
 
     rays = nx * ny * spp
-    print(f"{args.scene}: {nx}x{ny} spp={spp} in {dt:.1f}s "
+    print(f"{args.scene}: {nx}x{ny} spp={spp} engine={engine} in {dt:.1f}s "
           f"({rays / dt / 1e6:.2f}M primary rays/s) -> {out}")
     if args.timers:
         print(timers.report())

@@ -26,14 +26,16 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..utils.image_io import load_image
+from ..utils.image_io import load_rgb8
 from .scene import BG_BLACK, BG_SKY, SceneBuilder, SceneTables
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "assets")
 
 
 def _earth_pixels() -> np.ndarray:
-    return load_image(os.path.join(_ASSET_DIR, "earthmap.jpg"))
+    # earthmap.jpg decoded once to 8-bit RGB and stored as .npz, so the
+    # scene builds with numpy alone
+    return load_rgb8(os.path.join(_ASSET_DIR, "earthmap.npz"))
 
 
 def random_spheres(seed: int = 0) -> SceneTables:
@@ -304,7 +306,7 @@ def lattice_scene() -> SceneTables:
     src/material.rs:153-173): emissive checker/noise/image, image on
     rotated/plain/flipped rects and flipped spheres, and checker/noise/
     image medium albedo. Used by tests/test_pallas_tripwire.py (trace)
-    and tools/tpu_parity.py (kernel-vs-XLA hardware parity).
+    (lowering; its media make the whole scene an XLA-tier scene).
     """
     def texels(seed, h=8, w=16):
         r = np.random.default_rng(seed)

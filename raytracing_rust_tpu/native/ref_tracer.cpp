@@ -1,6 +1,6 @@
 // ref_tracer.cpp — faithful scalar C++ mirror of the reference renderer's
 // hot loop, used ONLY as (a) the measured performance baseline and (b) an
-// end-to-end correctness oracle. It is NOT part of the TPU compute path.
+// end-to-end correctness oracle. It is NOT part of the device compute path.
 //
 // The reference (DrStiev/raytracing_rust) is Rust and publishes no numbers;
 // Rust cannot run in this environment. This file transcribes its algorithm

@@ -1,7 +1,7 @@
 // Native host-side runtime pieces, C ABI for ctypes.
 //
 // The reference implements its whole runtime in a native language (Rust);
-// the TPU build keeps the compute path in XLA/Pallas and implements the
+// this build keeps the compute path in XLA/Pallas and implements the
 // host-side runtime — acceleration-structure build (reference src/bvh.rs)
 // and image encoding (reference tests/test.rs:55-85) — natively here.
 //

@@ -7,7 +7,7 @@ The reference integrator is a scalar recursion up to depth 50
     miss → background (live code: black; the book-1 sky gradient is the
            commented block at src/color.rs:18-20 — here a per-scene option)
 
-On TPU the recursion becomes an iterative *wavefront*: a batch of N rays
+On an accelerator the recursion becomes an iterative *wavefront*: a batch of N rays
 carries (origin, direction, throughput, radiance, alive) through a bounce
 loop. Two loop flavors:
 

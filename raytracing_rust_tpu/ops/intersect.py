@@ -2,7 +2,7 @@
 
 The reference finds closest hits by walking trait objects per ray
 (HittableList linear scan, reference src/hittable.rs:37-47; BVH recursion,
-src/bvh.rs:70-89). The TPU design inverts this into dense linear algebra:
+src/bvh.rs:70-89). This design inverts it into dense linear algebra:
 
 * **Transform hoisting.** Traslate/Rotate instances (reference
   src/traslate.rs:18-24, src/rotate.rs:85-112) are rigid, so instead of
@@ -41,14 +41,15 @@ BIG = 3.0e38  # stand-in for f64::MAX at reference src/color.rs:7
 
 
 def _mm(a, b):
-    """[N,3] @ [3,C] as an explicit f32 VPU contraction.
+    """[N,3] @ [3,C] as an explicit f32 elementwise contraction.
 
-    Not a real matmul on purpose, twice over: (1) TPU matmuls default to
-    bf16 inputs — at cornell-scale coordinates (~555, bf16 ulp 2.0) that
-    rounds ray origins onto the wrong side of their own surface and every
-    secondary ray self-intersects; (2) even at Precision.HIGHEST the MXU
-    pads K=3 to 128 and runs multiple passes, wasting ~97% of the array.
-    The unrolled K=3 elementwise form is exact f32 and stays on the VPU.
+    Not a real matmul on purpose, twice over: (1) on the GPU an f32
+    matmul may run in TF32 (~3 decimal digits) — at cornell-scale
+    coordinates (~555) that rounds ray origins onto the wrong side of
+    their own surface and every secondary ray self-intersects; (2) a K=3
+    contraction would waste almost all of a tensor-core tile anyway. The
+    unrolled K=3 elementwise form is exact f32 and fuses into the
+    surrounding elementwise work.
     """
     return (a[:, 0:1] * b[0][None, :] + a[:, 1:2] * b[1][None, :]
             + a[:, 2:3] * b[2][None, :])

@@ -1,25 +1,23 @@
-"""Fused differentiable tracer: forward+backward Pallas kernels.
+"""Fused differentiable tracer: forward+backward Pallas kernels for CUDA
+GPUs (Triton route).
 
-VERDICT r4 task 1 ("backward at speed of light"). The general
-differentiable path is the rematerialized XLA bounce scan
-(`ops.integrator.trace(differentiable=True)`) — measured 0.109 s/step
-on the production inverse render, ~150-200x off the forward megakernel.
-This module is the fast tier for the scenes gradient-based training
-actually uses: the WHOLE multi-bounce trace runs as ONE Pallas kernel
-per lane block (state lives in VMEM/registers across bounces — the
-XLA scan round-trips it through fusions per bounce), and the backward
-pass is a SECOND Pallas kernel that replays the trace in-kernel and
-applies reverse-mode cotangents.
+The general differentiable path is the rematerialized XLA bounce scan
+(`ops.integrator.trace(differentiable=True)`), which runs every lane
+through all `max_depth` bounces and round-trips the state through device
+memory per bounce. This module is the fast tier for the scenes
+gradient-based training actually uses: the WHOLE multi-bounce trace runs
+as ONE Pallas kernel per lane block (state stays in registers across
+bounces), and the backward pass is a SECOND Pallas kernel that replays
+the trace in-kernel and applies reverse-mode cotangents.
 
 The backward kernel is NOT hand-derived: the bounce math is a pure
-jnp function over (8, L) register tiles, and the kernel body calls
-`jax.vjp` on it — transposition happens at TRACE time, so Mosaic
+jnp function over (BLOCK,) lane vectors, and the kernel body calls
+`jax.vjp` on it — transposition happens at TRACE time, so Triton
 compiles the exact adjoint arithmetic autodiff would produce. Agreement
 with the XLA tier's `jax.grad` is therefore structural, and pinned by
-tests/test_pallas_grad.py in interpret mode (this kernel has no
-`prng_seed`, so unlike the megakernel it runs on CPU).
+tests/test_pallas_grad.py in interpret mode.
 
-Like the megakernel, the program is feature-gated STATICALLY per scene:
+Like the forward kernel, the program is feature-gated STATICALLY per scene:
 each primitive's kind (sphere/rect) and the set of material families
 present are compile-time constants, so a rect-only lambertian scene
 (the production inverse render) traces none of the sphere/metal/
@@ -34,12 +32,12 @@ the hit point), both backgrounds, no media, no motion blur, no russian
 roulette. That
 covers the production inverse-render scene (examples/inverse_render.py)
 and the bench gradient-probe family; everything else falls back to the
-XLA scan — same contract as the forward megakernel's UnsupportedScene.
+XLA scan — same contract as the forward kernel's UnsupportedScene.
 
 Reference parity: the bounce math mirrors ops/integrator._bounce (and
 therefore reference src/color.rs:6-23 + src/material.rs) exactly; the
 one numeric substitution is cbrt(x) = exp(log(x)/3) in the unit-ball
-radius (Mosaic has no cbrt — CLAUDE.md), which agrees to f32 ulps.
+radius, which agrees to f32 ulps.
 """
 
 from __future__ import annotations
@@ -50,7 +48,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..models.scene import (SceneTables, BG_SKY, MAT_LAMBERTIAN, MAT_METAL,
                             MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, TEX_SOLID,
@@ -60,9 +58,10 @@ from . import rng
 
 T_MIN = 1e-3  # reference src/color.rs:7
 
-SUB = 8       # sublane dim of a register tile
-LANES = 128   # lane dim; small block keeps the vjp's liveness in VMEM
-BLOCK = SUB * LANES
+# one lane per thread: the unrolled vjp keeps many values live per lane,
+# so a lane never shares a thread's registers with another
+NUM_WARPS = 4
+BLOCK = 32 * NUM_WARPS
 
 # record columns (f32[P, C]); built differentiably by fast_grad_record
 C_IS_SPHERE = 0
@@ -91,7 +90,7 @@ MAX_DEPTH = 16    # unrolled bounce loop
 def supports_fast_grad(scene: SceneTables, max_depth: int,
                        rr_depth=None) -> bool:
     """Static gate for the fused kernel's feature scope (see module
-    docstring). Mirrors the forward megakernel's support policy: run
+    docstring). Mirrors the forward kernel's support policy: run
     fast when legal, fall back to the general XLA path otherwise."""
     import numpy as np
     if rr_depth is not None or max_depth > MAX_DEPTH:
@@ -130,7 +129,7 @@ def fast_grad_config(scene: SceneTables):
 
     Needs CONCRETE scene tables — under jit, compute it once outside
     and pass it to trace_fast(cfg=...) (the config is static program
-    structure, exactly like the megakernel's per-scene gating).
+    structure, exactly like the forward kernel's per-scene gating).
     """
     import numpy as np
     from ..models.scene import PRIM_RECT
@@ -199,8 +198,8 @@ def fast_grad_record(scene: SceneTables) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# In-kernel math: pure jnp over (SUB, LANES) tiles. `scal` is a [P][REC_C]
-# nested list of traced SMEM scalars — python loops over it unroll, and
+# In-kernel math: pure jnp over (BLOCK,) lane vectors. `scal` is a
+# [P][REC_C] nested list of traced scalars — python loops over it unroll, and
 # jax.vjp over the whole structure gives per-scalar adjoints the backward
 # kernel writes into d_record.
 # ---------------------------------------------------------------------------
@@ -213,8 +212,8 @@ def _trace_tiles(scal, o, d, u, kinds, feats, n_bounce: int,
                  max_depth: int):
     """The full multi-bounce trace on one lane block.
 
-    scal: [P][REC_C] scalars; o, d: 3-tuples of (SUB, LANES) tiles;
-    u: [n_bounce][4] tiles (draw columns as integrator._lane_draws);
+    scal: [P][REC_C] scalars; o, d: 3-tuples of (BLOCK,) lane vectors;
+    u: [n_bounce][4] lane vectors (draw columns as integrator._lane_draws);
     kinds/feats: the static program structure (fast_grad_config).
     Returns (rr, rg, rb) radiance tiles. Mirrors integrator._bounce /
     trace for the supported scope — see module docstring.
@@ -232,7 +231,7 @@ def _trace_tiles(scal, o, d, u, kinds, feats, n_bounce: int,
     shape = ox.shape
     thr_r = thr_g = thr_b = jnp.ones(shape, f)
     rad_r = rad_g = rad_b = jnp.zeros(shape, f)
-    alive = jnp.ones(shape, f)  # f32 mask (bool carries trip Mosaic)
+    alive = jnp.ones(shape, f)  # f32 mask: multiplies into the gain
     zero = jnp.zeros(shape, f)
 
     for b in range(n_bounce):
@@ -387,7 +386,7 @@ def _trace_tiles(scal, o, d, u, kinds, feats, n_bounce: int,
             continue
 
         # ---- scatter (materials.py, reference src/material.rs) ----
-        # unit ball sample; cbrt via exp(log/3) (no Mosaic cbrt)
+        # unit ball sample; cbrt via exp(log/3)
         cos_t = f(2.0) * u0 - f(1.0)
         sin_t = jnp.sqrt(jnp.maximum(f(0.0), f(1.0) - cos_t * cos_t))
         phi = f(2.0 * 3.14159265358979) * u1
@@ -490,14 +489,14 @@ def _read_scal(rec_ref, P):
 def _fwd_kernel(rec_ref, od_ref, u_ref, rad_ref, *, kinds, feats,
                 n_bounce, max_depth):
     scal = _read_scal(rec_ref, len(kinds))
-    o = (od_ref[0, 0], od_ref[1, 0], od_ref[2, 0])
-    d = (od_ref[3, 0], od_ref[4, 0], od_ref[5, 0])
-    u = [[u_ref[b, c, 0] for c in range(4)] for b in range(n_bounce)]
+    o = (od_ref[0], od_ref[1], od_ref[2])
+    d = (od_ref[3], od_ref[4], od_ref[5])
+    u = [[u_ref[b, c] for c in range(4)] for b in range(n_bounce)]
     rr, rg, rb = _trace_tiles(scal, o, d, u, kinds, feats, n_bounce,
                               max_depth)
-    rad_ref[0, 0] = rr
-    rad_ref[1, 0] = rg
-    rad_ref[2, 0] = rb
+    rad_ref[0] = rr
+    rad_ref[1] = rg
+    rad_ref[2] = rb
 
 
 def _bwd_kernel(rec_ref, od_ref, u_ref, ct_ref, dod_ref, drec_ref, *,
@@ -505,24 +504,24 @@ def _bwd_kernel(rec_ref, od_ref, u_ref, ct_ref, dod_ref, drec_ref, *,
     """Replay the trace in-kernel and apply reverse-mode cotangents.
 
     jax.vjp runs at TRACE time over the same _trace_tiles the forward
-    kernel lowers — the adjoint Mosaic compiles is autodiff's own, so
+    kernel lowers — the adjoint Triton compiles is autodiff's own, so
     fast-tier grads match the XLA tier's structurally (module docstring).
     """
     P = len(kinds)
     scal = _read_scal(rec_ref, P)
-    o = (od_ref[0, 0], od_ref[1, 0], od_ref[2, 0])
-    d = (od_ref[3, 0], od_ref[4, 0], od_ref[5, 0])
-    u = [[u_ref[b, c, 0] for c in range(4)] for b in range(n_bounce)]
+    o = (od_ref[0], od_ref[1], od_ref[2])
+    d = (od_ref[3], od_ref[4], od_ref[5])
+    u = [[u_ref[b, c] for c in range(4)] for b in range(n_bounce)]
 
     def fn(scal, o, d):
         return _trace_tiles(scal, o, d, u, kinds, feats, n_bounce,
                             max_depth)
 
     _, vjp = jax.vjp(fn, scal, o, d)
-    d_scal, d_o, d_d = vjp((ct_ref[0, 0], ct_ref[1, 0], ct_ref[2, 0]))
+    d_scal, d_o, d_d = vjp((ct_ref[0], ct_ref[1], ct_ref[2]))
     for i in range(3):
-        dod_ref[i, 0] = d_o[i]
-        dod_ref[3 + i, 0] = d_d[i]
+        dod_ref[i] = d_o[i]
+        dod_ref[3 + i] = d_d[i]
     for p in range(P):
         for c in range(REC_C):
             g = d_scal[p][c]
@@ -530,29 +529,23 @@ def _bwd_kernel(rec_ref, od_ref, u_ref, ct_ref, dod_ref, drec_ref, *,
                                  if g is None else g)
 
 
-def _interpret() -> bool:
-    # no prng in these kernels → interpret mode runs the CPU suite
-    return jax.default_backend() != "tpu"
-
-
 @functools.lru_cache(maxsize=None)
 def _make_traced(kinds, feats, n_bounce: int, max_depth: int, nb: int,
                  interpret: bool):
     """custom_vjp'd (rec, od, u) → rad for one static config.
 
-    od: f32[6, nb, SUB, LANES]; u: f32[n_bounce, 4, nb, SUB, LANES];
-    rad: f32[3, nb, SUB, LANES]. nb = lane blocks (grid dim).
-    `interpret` is part of the cache key (a CPU-pinned test and a TPU
-    bench can share one process).
+    od: f32[6, nb·BLOCK]; u: f32[n_bounce, 4, nb·BLOCK];
+    rad: f32[3, nb·BLOCK]. nb = lane blocks (grid dim).
+    `interpret` is part of the cache key (an interpret-mode test and a
+    compiled run can share one process).
     """
     P = len(kinds)
     grid = (nb,)
-    rec_spec = pl.BlockSpec((P, REC_C), lambda i: (0, 0),
-                            memory_space=pltpu.SMEM)
-    od_spec = pl.BlockSpec((6, 1, SUB, LANES), lambda i: (0, i, 0, 0))
-    u_spec = pl.BlockSpec((n_bounce, 4, 1, SUB, LANES),
-                          lambda i: (0, 0, i, 0, 0))
-    rad_spec = pl.BlockSpec((3, 1, SUB, LANES), lambda i: (0, i, 0, 0))
+    rec_spec = pl.BlockSpec((P, REC_C), lambda i: (0, 0))
+    od_spec = pl.BlockSpec((6, BLOCK), lambda i: (0, i))
+    u_spec = pl.BlockSpec((n_bounce, 4, BLOCK), lambda i: (0, 0, i))
+    rad_spec = pl.BlockSpec((3, BLOCK), lambda i: (0, i))
+    params = plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1)
 
     fwd_call = pl.pallas_call(
         partial(_fwd_kernel, kinds=kinds, feats=feats, n_bounce=n_bounce,
@@ -560,8 +553,11 @@ def _make_traced(kinds, feats, n_bounce: int, max_depth: int, nb: int,
         grid=grid,
         in_specs=[rec_spec, od_spec, u_spec],
         out_specs=rad_spec,
-        out_shape=jax.ShapeDtypeStruct((3, nb, SUB, LANES), jnp.float32),
+        out_shape=jax.ShapeDtypeStruct((3, nb * BLOCK), jnp.float32),
+        backend="triton",
+        compiler_params=params,
         interpret=interpret,
+        name="rt_grad_fwd",
     )
 
     bwd_call = pl.pallas_call(
@@ -570,15 +566,17 @@ def _make_traced(kinds, feats, n_bounce: int, max_depth: int, nb: int,
         grid=grid,
         in_specs=[rec_spec, od_spec, u_spec, rad_spec],
         out_specs=(
-            pl.BlockSpec((6, 1, SUB, LANES), lambda i: (0, i, 0, 0)),
-            pl.BlockSpec((1, P, REC_C), lambda i: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
+            pl.BlockSpec((6, BLOCK), lambda i: (0, i)),
+            pl.BlockSpec((1, P, REC_C), lambda i: (i, 0, 0)),
         ),
         out_shape=(
-            jax.ShapeDtypeStruct((6, nb, SUB, LANES), jnp.float32),
+            jax.ShapeDtypeStruct((6, nb * BLOCK), jnp.float32),
             jax.ShapeDtypeStruct((nb, P, REC_C), jnp.float32),
         ),
+        backend="triton",
+        compiler_params=params,
         interpret=interpret,
+        name="rt_grad_bwd",
     )
 
     @jax.custom_vjp
@@ -632,18 +630,18 @@ def trace_tiles_reference(scene: SceneTables, o, d, key,
     rec = fast_grad_record(scene)
     kinds, feats = cfg if cfg is not None else fast_grad_config(scene)
     scal = [[rec[p, c] for c in range(REC_C)] for p in range(len(kinds))]
-    ot = tuple(o[:, i].reshape(SUB, -1) for i in range(3))
-    dt = tuple(d[:, i].reshape(SUB, -1) for i in range(3))
-    u = fast_draws(key, n, n_bounce, lane_keyed_draws)
-    u = jax.lax.stop_gradient(u).reshape(n_bounce, 4, SUB, -1)
+    ot = tuple(o[:, i] for i in range(3))
+    dt = tuple(d[:, i] for i in range(3))
+    u = jax.lax.stop_gradient(fast_draws(key, n, n_bounce, lane_keyed_draws))
     ul = [[u[b, c] for c in range(4)] for b in range(n_bounce)]
     rr, rg, rb = _trace_tiles(scal, ot, dt, ul, kinds, feats, n_bounce,
                               max_depth)
-    return jnp.stack([rr, rg, rb]).reshape(3, -1).T
+    return jnp.stack([rr, rg, rb]).T
 
 
 def trace_fast(scene: SceneTables, o, d, key, max_depth: int = 50,
-               lane_keyed_draws: bool = False, cfg=None) -> jnp.ndarray:
+               lane_keyed_draws: bool = False, cfg=None,
+               interpret: bool = False) -> jnp.ndarray:
     """Differentiable radiance for a ray batch via the fused Pallas
     kernels → f32[N, 3]. Drop-in for the supported scope of
     `integrator.trace(..., differentiable=True)` (gate:
@@ -653,7 +651,8 @@ def trace_fast(scene: SceneTables, o, d, key, max_depth: int = 50,
     examples/inverse_render.py's fast path does).
 
     cfg: fast_grad_config(scene) — REQUIRED when scene is traced (jit):
-    the kinds/feats program structure must be concrete."""
+    the kinds/feats program structure must be concrete.
+    interpret: run both kernels in Pallas interpret mode (CPU tests)."""
     n = o.shape[0]
     n_bounce = max_depth + 1
     rec = fast_grad_record(scene)
@@ -666,11 +665,9 @@ def trace_fast(scene: SceneTables, o, d, key, max_depth: int = 50,
             [d, jnp.broadcast_to(jnp.asarray([0.0, 0.0, -1.0], d.dtype),
                                  (pad, 3))])
     nb = (n + pad) // BLOCK
-    od = jnp.concatenate([o.T, d.T]).reshape(6, nb, SUB, LANES)
-    u = fast_draws(key, n + pad, n_bounce, lane_keyed_draws)
-    u = u.reshape(n_bounce, 4, nb, SUB, LANES)
-    u = jax.lax.stop_gradient(u)
-    traced = _make_traced(kinds, feats, n_bounce, max_depth, nb,
-                          _interpret())
-    rad = traced(rec, od, u)                    # [3, nb, SUB, LANES]
-    return rad.reshape(3, -1).T[:n]
+    od = jnp.concatenate([o.T, d.T])
+    u = jax.lax.stop_gradient(
+        fast_draws(key, n + pad, n_bounce, lane_keyed_draws))
+    traced = _make_traced(kinds, feats, n_bounce, max_depth, nb, interpret)
+    rad = traced(rec, od, u)                    # [3, nb·BLOCK]
+    return rad.T[:n]

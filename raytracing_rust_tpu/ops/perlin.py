@@ -5,7 +5,7 @@ permutation tables at texture construction (src/perlin.rs:12-26, :28-36) and
 evaluates Hermite-smoothed trilinear gradient interpolation per point
 (src/perlin.rs:38-97) and a 7-octave turbulence sum (src/perlin.rs:99-109).
 
-TPU-first redesign — the tables are replaced by an arithmetic lattice hash:
+Redesign — the tables are replaced by an arithmetic lattice hash:
 
 * the reference's tables come from an UNSEEDED thread RNG (src/perlin.rs:5,13)
   — every run gets a different noise field, so there is no fixed pattern to
@@ -15,9 +15,9 @@ TPU-first redesign — the tables are replaced by an arithmetic lattice hash:
   (cosθ = 2u₁−1, φ = 2πu₂) — the same gradient distribution as the
   reference's `random unit vectors`, with the same 256-periodic tiling as
   its `& 255` index wrap, but deterministic per seed and computable with
-  pure per-lane VPU arithmetic. No tables means no gathers, which Mosaic
-  (the Pallas TPU compiler) does not support per-lane — this is what lets
-  the megakernel evaluate noise in-kernel instead of falling back to XLA.
+  pure per-lane arithmetic. No tables means no gathers and no table
+  operands, so the GPU kernel evaluates noise in-kernel with the same
+  code the XLA tier runs.
 * lattice coordinates use a true signed floor. The reference's
   `floor(p) as usize` saturates negative coordinates to 0 (degenerate noise
   for p < 0); we use the canonical signed wrap for all coordinates.
@@ -25,8 +25,9 @@ TPU-first redesign — the tables are replaced by an arithmetic lattice hash:
 The interpolation (Hermite weights, gradient dot products, octave sum) is
 unchanged from the reference. `tests/oracle.py::perlin_noise` is the scalar
 f64 mirror of this exact formula; `ops/pallas_tracer.py` carries the
-in-kernel copy. The three implementations share bit-identical integer paths
-(uints throughout; float transcendentals may differ by ulps per backend).
+in-kernel copy (`_turb`). The three implementations share bit-identical
+integer paths (uints throughout; float transcendentals may differ by ulps
+per backend).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Multi-chip / multi-host render + gradient sharding.
 
 The reference is a single-threaded CPU program (SURVEY.md §2: rayon declared
-but unused, Rc-based BVH). The TPU build scales the two embarrassingly
+but unused, Rc-based BVH). This build scales the two embarrassingly
 parallel axes over a `jax.sharding.Mesh`:
 
 * `dp` — pixel tiles (data parallelism over the image);
@@ -10,8 +10,9 @@ parallel axes over a `jax.sharding.Mesh`:
 
 We annotate lane arrays with `NamedSharding` and let GSPMD insert the
 collectives (psum over `sp` for radiance, psum over the whole mesh for
-parameter gradients in the differentiable path) — the idiomatic TPU answer to
-NCCL/MPI (SURVEY.md §5 "Distributed communication backend"). Multi-host runs
+parameter gradients in the differentiable path; on GPUs XLA hands them
+to NCCL) — the idiomatic JAX answer to NCCL/MPI (SURVEY.md §5
+"Distributed communication backend"). Multi-host runs
 use the same code after `jax.distributed.initialize()`.
 """
 
@@ -279,7 +280,7 @@ def render_sharded(scene: SceneTables, cam: Camera, nx: int, ny: int,
     Sample chunking mirrors render(): block_pixels·spp_chunk lanes per
     dispatch stay under the ~2^22 lane budget (the dense intersect
     materializes [N, P, 3] temps, and one 65536·spp-lane dispatch at
-    reference spp would OOM and outrun the TPU runtime watchdog).
+    reference spp would run out of device memory).
 
     compact: per-shard wavefront compaction (see _head_sharded) — needs
     spp_chunk divisible by the sp mesh axis (shard_map shapes are exact);

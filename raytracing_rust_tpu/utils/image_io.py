@@ -7,6 +7,9 @@ The reference writes ASCII PPM P3: header `P3\n{nx} {ny}\n255\n`, one
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 
 
@@ -52,15 +55,33 @@ def read_ppm(path: str) -> np.ndarray:
     return (vals / maxv).reshape(ny, nx, 3)
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    from PIL import Image
+def encode_png(img: np.ndarray) -> bytes:
+    """float [ny, nx, 3] (row 0 = top) → 8-bit RGB PNG bytes, with the
+    reference's quantization. Standard library only (zlib + struct)."""
     arr = np.clip(quantize(img), 0, 255).astype(np.uint8)
-    Image.fromarray(arr).save(path)
+    ny, nx, _ = arr.shape
+    # filter type 0 (none) on every scanline
+    raw = np.concatenate([np.zeros((ny, 1), np.uint8),
+                          arr.reshape(ny, nx * 3)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", nx, ny, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
 
 
-def load_image(path: str) -> np.ndarray:
-    """Decode an image file to float [H, W, 3] in [0,1] (scene-build time,
-    like reference tests/test.rs:201-206 image::open().to_rgb8())."""
-    from PIL import Image
-    im = Image.open(path).convert("RGB")
-    return np.asarray(im, dtype=np.float32) / 255.0
+def write_png(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def load_rgb8(path: str) -> np.ndarray:
+    """Load an 8-bit RGB image stored as `.npz` (key "rgb", uint8
+    [H, W, 3]) → float [H, W, 3] in [0, 1] (scene-build time, like
+    reference tests/test.rs:201-206 image::open().to_rgb8())."""
+    with np.load(path) as z:
+        return np.asarray(z["rgb"], dtype=np.float32) / 255.0

@@ -118,7 +118,7 @@ def test_bvh_leaf_size_is_stored_and_used():
 
 def test_bvh_render_per_chunk_dispatch_matches_multi():
     """Regression (round-3 review): with use_bvh and n_chunks>1 the host
-    now dispatches per chunk (watchdog cap on block_pixels*spp_chunk, not
+    now dispatches per chunk (stack-memory cap on block_pixels*spp_chunk, not
     block_pixels alone); key folding is identical, so the image must be
     bit-equal to the single-dispatch fori path at the same chunking."""
     from raytracing_rust_tpu.render import render

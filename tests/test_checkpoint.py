@@ -47,8 +47,8 @@ def test_checkpoint_ignored_on_config_change():
 
 def test_checkpoint_ignored_on_scene_or_camera_change():
     """A checkpoint written for one scene/camera must not seed another
-    render whose explicit meta scalars happen to match (ADVICE.md round 1:
-    stale sums were silently merged)."""
+    render whose explicit meta scalars happen to match (stale sums were
+    once silently merged)."""
     preset = builders.PRESETS["two_spheres"]
     scene = preset.build()
     cam = preset.camera()

@@ -14,9 +14,9 @@ def test_scenes_lists_presets(capsys):
         assert name in out
 
 
-def test_render_auto_engine_on_cpu(tmp_path):
-    """auto engine must fall back to the XLA tier on CPU-only hosts (the
-    megakernel's PRNG has no CPU lowering)."""
+def test_render_auto_engine_on_cpu(tmp_path, capsys):
+    """auto engine renders on the XLA tier on a host without a GPU (the
+    Triton-route kernel compiles only for CUDA) and says so."""
     out = str(tmp_path / "t.ppm")
     log = str(tmp_path / "log.log")
     rc = main(["render", "--scene", "two_spheres", "--nx", "32", "--ny",
@@ -27,6 +27,8 @@ def test_render_auto_engine_on_cpu(tmp_path):
     assert img.shape == (18, 32, 3)
     assert img.mean() > 0.2  # sky scene, not black
     assert os.path.exists(log)
+    assert "engine=xla" in capsys.readouterr().out
+    assert "engine=xla" in open(log).read()
 
 
 def test_render_png_and_unknown_scene(tmp_path):
@@ -61,12 +63,18 @@ def test_bench_validates_args(capsys):
     assert "positive" in capsys.readouterr().err
 
 
-def test_checkpoint_requires_xla_engine(tmp_path):
-    """--checkpoint is an XLA-tier feature; forcing the pallas engine
-    with it must fail loudly (auto falls back to xla instead)."""
-    rc = main(["render", "--scene", "two_spheres", "--nx", "16", "--ny",
-               "9", "--spp", "2", "--engine", "pallas",
-               "--checkpoint", str(tmp_path / "c.npz"),
-               "--out", str(tmp_path / "t.ppm"), "--no-progress",
-               "--log", str(tmp_path / "l.log")])
-    assert rc == 2
+def test_checkpoint_requires_xla_engine(tmp_path, capsys):
+    """--engine pallas on a host without a GPU stops with one clear line
+    (exit 2) — with or without --checkpoint — and never drops to
+    interpret mode or to the XLA tier."""
+    out = tmp_path / "t.ppm"
+    for extra in ([], ["--checkpoint", str(tmp_path / "c.npz")]):
+        rc = main(["render", "--scene", "two_spheres", "--nx", "16",
+                   "--ny", "9", "--spp", "2", "--engine", "pallas",
+                   "--out", str(out), "--no-progress",
+                   "--log", str(tmp_path / "l.log")] + extra)
+        assert rc == 2
+        err = capsys.readouterr().err.strip().splitlines()
+        assert err == ["--engine pallas requires a CUDA GPU "
+                       "(the kernel is compiled by Triton)"]
+    assert not out.exists()

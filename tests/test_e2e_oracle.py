@@ -187,7 +187,7 @@ def test_simple_light_noise_matches_mirror_per_half():
     field is unmatchable by design (README documents the hash-gradient
     deviation); the mirror instead carries an independent scalar f64
     transcription of the framework's hash-Perlin SPEC (no shared code or
-    vectorization with ops/perlin.py / the megakernel / tests/oracle.py),
+    vectorization with ops/perlin.py / the GPU kernel / tests/oracle.py),
     pinning the marble formula, octave sum, lattice hash, and the whole
     noise-scene radiometry absolutely. Per-half means localize a bias to
     the emitters (top) vs the noise ground (bottom)."""

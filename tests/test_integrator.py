@@ -114,7 +114,7 @@ def test_render_deterministic_per_seed():
 
 
 def test_render_dispatch_grouping_invariant(monkeypatch):
-    """The watchdog ray budget groups sample chunks into dispatches
+    """The per-dispatch ray budget groups sample chunks into dispatches
     (render.py _DISPATCH_RAY_BUDGET); absolute chunk-id key folding must
     make the image bit-identical however the host groups them — one
     dispatch for all chunks, one per chunk, or a ragged 3+1 split."""

@@ -1,4 +1,4 @@
-"""Large-scene scaling support (VERDICT r4 task 4).
+"""Large-scene scaling support.
 
 big_spheres(n) is the parametric scale scene (reference src/bvh.rs:9-94
 exists for exactly this regime); DESIGN.md "Large scenes" holds the
@@ -35,14 +35,27 @@ def test_dense_and_bvh_agree_at_12k_prims():
 
 
 def test_auto_policy():
+    """auto_use_bvh follows the default backend's measured crossover
+    (backend._BVH_MIN_PRIMS, keyed by backend; CPU here)."""
+    from raytracing_rust_tpu import backend
+    assert jax.default_backend() == "cpu"
+    assert backend.bvh_min_prims() == backend._BVH_MIN_PRIMS["cpu"]
+    assert set(backend._BVH_MIN_PRIMS) == {"cpu", "gpu"}
     small = big_spheres(300)
     big = big_spheres(12000)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    if on_tpu:
-        assert not auto_use_bvh(small) and not auto_use_bvh(big)
-    else:
-        assert not auto_use_bvh(small)
-        assert auto_use_bvh(big)
+    assert small.num_prims < backend.bvh_min_prims() <= big.num_prims
+    assert not auto_use_bvh(small)
+    assert auto_use_bvh(big)
+
+
+def test_auto_policy_gpu_crossover(monkeypatch):
+    """On a GPU backend the policy switches at the H100 crossover, not
+    the CPU's: a 12k-primitive scene stays on the dense scan."""
+    from raytracing_rust_tpu import backend
+    monkeypatch.setattr(backend.jax, "default_backend", lambda: "gpu")
+    assert backend.bvh_min_prims() == backend._BVH_MIN_PRIMS["gpu"]
+    assert not auto_use_bvh(big_spheres(12000))
+    assert auto_use_bvh(big_spheres(30000))
 
 
 def test_bvh_node_bounds_contain_prims():

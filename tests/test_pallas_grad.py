@@ -1,7 +1,8 @@
 """Fused differentiable Pallas tier (ops/pallas_grad.py) vs the XLA scan.
 
-The kernel has no TPU-only primitives, so interpret mode runs it in the
-CPU suite — primal radiance AND reverse-mode gradients are compared
+Interpret mode runs the kernels in the CPU suite (passed explicitly —
+the kernels never infer it from the backend) — primal radiance AND
+reverse-mode gradients are compared
 against `trace(differentiable=True)` on bit-identical draw streams
 (lane_keyed_draws=True): the two tiers share the estimator, so they
 must agree to f32 tolerance, not just statistically.
@@ -21,6 +22,8 @@ from raytracing_rust_tpu.models.scene import SceneBuilder, BG_SKY, BG_BLACK
 from raytracing_rust_tpu.ops.integrator import trace
 from raytracing_rust_tpu.ops.pallas_grad import (
     BLOCK, supports_fast_grad, trace_fast, trace_tiles_reference)
+
+N = 8 * BLOCK   # lanes per test batch (8 kernel programs)
 
 GRAD_LEAVES = ("prim_data", "mat_param", "tex_color", "xf_offset",
                "xf_sin", "xf_cos")
@@ -82,12 +85,13 @@ def _grads_close(loss_a, loss_b, scene, atol_scale=5e-4):
 def test_primal_matches_xla_tier_full_features():
     scene = probe_scene()
     assert supports_fast_grad(scene, 8)
-    n = BLOCK
+    n = N
     o, d = probe_rays(n)
     key = jax.random.key(7)
     want = trace(scene, o, d, jnp.zeros(n), key, max_depth=5,
                  differentiable=True)
-    got = trace_fast(scene, o, d, key, max_depth=5, lane_keyed_draws=True)
+    got = trace_fast(scene, o, d, key, max_depth=5, lane_keyed_draws=True,
+                     interpret=True)
     assert got.shape == (n, 3)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
@@ -95,7 +99,7 @@ def test_primal_matches_xla_tier_full_features():
 
 def test_primal_pad_path_and_black_bg():
     scene = small_scene()
-    n = BLOCK + 500  # exercises the lane-padding path
+    n = N + 500  # exercises the lane-padding path
     b = SceneBuilder(background=BG_BLACK)
     # rebuild the small scene on a black background
     b.rect("zx", -3, -3, 3, 3, 0.0, b.lambertian(b.solid(0.7, 0.7, 0.7)))
@@ -108,7 +112,8 @@ def test_primal_pad_path_and_black_bg():
     key = jax.random.key(9)
     want = trace(scene, o, d, jnp.zeros(n), key, max_depth=4,
                  differentiable=True)
-    got = trace_fast(scene, o, d, key, max_depth=4, lane_keyed_draws=True)
+    got = trace_fast(scene, o, d, key, max_depth=4, lane_keyed_draws=True,
+                     interpret=True)
     assert got.shape == (n, 3)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
@@ -116,9 +121,10 @@ def test_primal_pad_path_and_black_bg():
 
 def test_kernel_grads_match_xla_tier_small_scene():
     """The pallas custom_vjp plumbing end-to-end (small scene keeps the
-    interpret-mode in-kernel-vjp compile fast)."""
+    interpret-mode in-kernel-vjp compile fast; two programs exercise the
+    per-block table-gradient sum)."""
     scene = small_scene()
-    n = BLOCK
+    n = 2 * BLOCK
     o, d = probe_rays(n, seed=5)
     key = jax.random.key(11)
     w = jnp.asarray(np.random.default_rng(0)
@@ -127,7 +133,8 @@ def test_kernel_grads_match_xla_tier_small_scene():
         lambda s: jnp.mean(w * trace(s, o, d, jnp.zeros(n), key,
                                      max_depth=3, differentiable=True)),
         lambda s: jnp.mean(w * trace_fast(s, o, d, key, max_depth=3,
-                                          lane_keyed_draws=True)),
+                                          lane_keyed_draws=True,
+                                          interpret=True)),
         scene)
 
 
@@ -136,7 +143,7 @@ def test_reference_grads_match_xla_tier_full_features():
     (trace_tiles_reference — see module docstring for why not the
     kernel)."""
     scene = probe_scene()
-    n = BLOCK
+    n = N
     o, d = probe_rays(n, seed=5)
     key = jax.random.key(11)
     w = jnp.asarray(np.random.default_rng(1)
@@ -153,10 +160,11 @@ def test_kernel_matches_reference_path():
     """Kernel plumbing == reference path on the same scene/draws (the
     two must be the same computation, not merely close)."""
     scene = small_scene()
-    n = BLOCK
+    n = N
     o, d = probe_rays(n, seed=8)
     key = jax.random.key(2)
-    a = np.asarray(trace_fast(scene, o, d, key, max_depth=3))
+    a = np.asarray(trace_fast(scene, o, d, key, max_depth=3,
+                               interpret=True))
     b = np.asarray(trace_tiles_reference(scene, o, d, key, max_depth=3))
     np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
 
@@ -179,7 +187,7 @@ def test_checker_matches_xla_tier():
     b.sphere((2.2, 1.1, 0.3), 0.8, b.lambertian(b.solid(0.3, 0.4, 0.8)))
     scene = b.build()
     assert supports_fast_grad(scene, 8)
-    n = BLOCK
+    n = N
     o, d = probe_rays(n, seed=9)
     key = jax.random.key(6)
     want = trace(scene, o, d, jnp.zeros(n), key, max_depth=4,
@@ -190,7 +198,7 @@ def test_checker_matches_xla_tier():
                                rtol=2e-4, atol=2e-4)
     # kernel plumbing of the checker columns at small depth
     got_k = trace_fast(scene, o, d, key, max_depth=2,
-                       lane_keyed_draws=True)
+                       lane_keyed_draws=True, interpret=True)
     want_k = trace(scene, o, d, jnp.zeros(n), key, max_depth=2,
                    differentiable=True)
     np.testing.assert_allclose(np.asarray(got_k), np.asarray(want_k),
@@ -212,7 +220,7 @@ def test_dielectric_interior_rays_match_xla_tier():
     b.rect("zx", -4, -4, 4, 4, -2.0, b.lambertian(b.solid(0.6, 0.3, 0.2)))
     b.sphere((0.0, 0.0, 0.0), 1.0, b.dielectric(1.5))
     scene = b.build()
-    n = BLOCK
+    n = N
     rng = np.random.default_rng(12)
     o = jnp.asarray(rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32))
     d = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
@@ -256,8 +264,31 @@ def test_supports_gate():
 def test_inverse_render_scene_supported():
     import os
     import sys
-    os.environ["RT_IR_TPU"] = "1"  # stop the example's import-time CPU pin
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), ".."))
     from examples.inverse_render import build_scene
     assert supports_fast_grad(build_scene(), 6)
+
+
+def test_grad_kernels_lower_for_cuda():
+    """Both fused kernels (the forward, and the backward with its
+    in-kernel vjp) lower through the Triton route for CUDA on a host with
+    no card, at the production inverse-render scene and depth."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), ".."))
+    from examples.inverse_render import build_scene
+    from raytracing_rust_tpu.ops.pallas_grad import fast_grad_config
+    scene = build_scene()
+    cfg = fast_grad_config(scene)
+    o, d = probe_rays(2 * BLOCK)
+    key = jax.random.key(0)
+
+    def value_and_grad(s):
+        return jax.value_and_grad(lambda s_: jnp.mean(trace_fast(
+            s_, o, d, key, max_depth=6, cfg=cfg)), allow_int=True)(s)
+
+    text = jax.jit(value_and_grad).trace(scene).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "rt_grad_fwd" in text and "rt_grad_bwd" in text

@@ -1,9 +1,8 @@
-"""Host-side megakernel scene-record builder (ops/pallas_tracer.py).
+"""Host-side scene table of the GPU kernel (ops/pallas_tracer.py).
 
-The kernel itself needs TPU hardware (the core PRNG has no CPU lowering);
-its record flattening, feature flags, partitioning, and fallback triggers
-are pure host logic and tested here. Kernel-vs-XLA image parity is covered
-by the TPU-side bench/verify flow.
+The table flattening, feature set, row order and refusal triggers are
+pure host logic and tested here; the kernel itself is covered by the
+lowering tripwire, the interpret-mode tests, and chip_smoke.py on a card.
 """
 
 import numpy as np
@@ -13,204 +12,102 @@ from raytracing_rust_tpu.models import builders
 from raytracing_rust_tpu.models.scene import SceneBuilder, BG_BLACK
 from raytracing_rust_tpu.ops import pallas_tracer as pt
 
-REC_FIELDS = dict(mat=pt.R_MAT, emit=pt.R_EMIT, alb=pt.R_ALB_EVEN)
-
 
 def test_cornell_record():
     scene = builders.cornell_box()
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
+    tab, n_sph, feats, atlas, hw = pt.build_scene_table(scene)
     # 17, not 18: the reference pushes the floor twice (flipped then
     # unflipped, tests/test.rs:268-295) and its rect tie-break makes the
     # flipped copy unreachable — SceneBuilder drops it (models/scene.py
-    # _dedup_coincident), so the record sees one floor.
-    assert kinds == ("rect",) * 17
-    # 17 rects share 9 world frames (axis walls + two rotated boxes)
-    assert sorted(sum((list(g) for g in groups), [])) == list(range(17))
-    assert len(groups) == 9
-    assert n_dyn == 0 and med_kinds == ()
-    assert flags == (False,) * 11  # checker/metal/diel/noise/image/dyn_moving/compat_uv/emis_tex/uv_carry/img_flip/med_tex
-    # light rect (index 2) emits 15
-    np.testing.assert_allclose(rec[2, pt.R_EMIT:pt.R_EMIT + 3], 15.0)
+    # _dedup_coincident), so the table sees one floor.
+    assert tab.shape == (17, pt.NF) and n_sph == 0
+    assert feats == frozenset({"lamb", "light"})
+    # rows keep the original order when there are no spheres
+    np.testing.assert_array_equal(tab[:, pt.F_ORIG], np.arange(17))
+    # light rect (index 2) emits 15 through its texture value
+    assert tab[2, pt.F_MAT] == 3.0
+    np.testing.assert_allclose(tab[2, pt.F_EVEN:pt.F_EVEN + 3], 15.0)
     # green wall flip carried
-    assert rec[0, pt.R_FLIP] == -1.0
-    np.testing.assert_allclose(rec[1, pt.R_ALB_EVEN:pt.R_ALB_EVEN + 3],
+    assert tab[0, pt.F_FLIP] == -1.0
+    np.testing.assert_allclose(tab[1, pt.F_EVEN:pt.F_EVEN + 3],
                                [0.65, 0.05, 0.05], rtol=1e-6)
+    assert atlas.shape == (1,)   # no image textures → dummy atlas
 
 
 def test_random_spheres_partition():
     scene = builders.random_spheres()
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
-    # the ground sphere (r=1000) and the three unit heroes unroll
-    # (r ≥ 4× the 0.2 population median); the small spheres go dynamic
-    assert kinds == ("sphere",) * 4
-    assert n_dyn == scene.num_prims - 4
-    (has_checker, has_metal, has_diel, has_noise, has_image,
-     dyn_moving, compat_uv, emis_tex, uv_carry, img_flip, med_tex) = flags
-    assert has_checker and has_metal and has_diel and not has_noise
-    # random_spheres' ~330 movers exceed the unroll budget, so the thin
-    # dynamic loop keeps the moving-center lerp for this scene
-    assert dyn_moving
-    # moving spheres carry a nonzero center span
-    moving = np.abs(dyn[:, pt.R_DC:pt.R_DC + 3]).sum(axis=1) > 0
+    tab, n_sph, feats, atlas, hw = pt.build_scene_table(scene)
+    assert n_sph == scene.num_prims == len(tab)
+    assert {"checker", "metal", "diel", "moving", "sky"} <= feats
+    assert "noise" not in feats and "image" not in feats
+    # moving spheres carry a nonzero center span and 1/(t1 - t0)
+    moving = np.abs(tab[:, pt.F_DC:pt.F_DC + 3]).sum(axis=1) > 0
     assert moving.any() and not moving.all()
+    assert (tab[moving, pt.F_INVDT] != 0).all()
+    # radii round-trip through r² and 1/r
+    np.testing.assert_allclose(tab[:, pt.F_R2] * tab[:, pt.F_INVR] ** 2,
+                               1.0, rtol=1e-5)
 
 
 def test_smoke_media_records():
-    scene = builders.cornell_smoke()
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
-    # neither smoke box is walk-dense (mfp 100 ≳ extent/4)
-    assert med_kinds == (("mbox", False), ("mbox", False))
-    assert int_kinds == ()
-    np.testing.assert_allclose(med[:, pt.M_INV_RHO], 100.0)  # 1/0.01
-    # rotation block is orthonormal
-    for i in range(2):
-        R = med[i, pt.M_ROT:pt.M_ROT + 9].reshape(3, 3)
-        np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-6)
-    np.testing.assert_allclose(med[0, pt.M_ALB:pt.M_ALB + 3], 1.0)
-    np.testing.assert_allclose(med[1, pt.M_ALB:pt.M_ALB + 3], 0.0)
+    """Participating media are outside the kernel: cornell_smoke is
+    refused with the reason, so auto mode renders it on the XLA tier."""
+    with pytest.raises(pt.UnsupportedScene, match="media"):
+        pt.build_scene_table(builders.cornell_smoke())
 
 
 def test_unsupported_scenes_fall_back():
-    # >96 non-box rects with no box structure still needs the XLA tier
+    # rect-heavy tables are fine now (one dynamic loop, no unroll budget)
     b = SceneBuilder(background=BG_BLACK)
     m = b.lambertian(b.solid(0.5, 0.5, 0.5))
     for i in range(120):
         b.rect("xy", 0, 0, 1, 1, float(i), m)
+    tab, n_sph, *_ = pt.build_scene_table(b.build())
+    assert len(tab) == 120 and n_sph == 0
+    # an isotropic surface is refused
+    b.sphere((0, 0, 0), 1.0, b.isotropic(b.solid(1, 1, 1)))
     with pytest.raises(pt.UnsupportedScene):
-        pt.build_scene_record(b.build())
+        pt.build_scene_table(b.build())
 
 
 def test_final_scene_partition():
-    """final_scene (reference tests/test.rs:419-523): 400 ground cubes
-    merge into box rows, 1006 spheres go clustered-dynamic, and only the
-    light rect stays unrolled."""
+    """final_scene (reference tests/test.rs:419-523) carries two media, so
+    the whole scene goes to the XLA tier; its surfaces alone would fit
+    one table with spheres first and rects after."""
     scene = builders.final_scene()
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
-    # the ceiling light, the one moving sphere (movers prefer the
-    # unrolled loop so the thin dynamic loop can drop the center lerp),
-    # and the 5 static hero spheres (r=50..100 vs the whites' r=10;
-    # unrolling them seeds t_b before the cluster guards run)
-    assert sorted(kinds) == ["moving", "rect"] + ["sphere"] * 5
-    assert n_box == 400
-    assert n_dyn == 1000               # the white cluster spheres
-    # the subsurface blue sphere is walk-dense (mfp 5 vs diameter 140)
-    # AND sealed by the coincident glass hero; the global mist is not
-    assert med_kinds == (("msphere", True), ("msphere", False))
-    assert flags == (False, True, True, True, True, False) + (False,) * 5
-    # compact attribute table: the dyn/box prims (white spheres + green
-    # ground boxes, all lambertian) carry no moving centers, metal/diel
-    # params, checker, noise, or image fields, so exactly 16 fields
-    # survive (TYPE, G0/G3, INVR/FLIP/MAT, EMIT, ALB_E) → 2 bands
-    # instead of 4; the gather is the thin path's hot spot
-    assert len(attr_fields) == 16 and pt.A_NOISE not in attr_fields
-    assert pt.A_T0 not in attr_fields and pt.A_PARAM not in attr_fields
-    assert attr.shape[0] == 16
-    # the walk's interior set: the sealing glass hero + the ground
-    # boxes that poke into the medium's AABB — all near (360, 150, 145)
-    assert "sphere" in int_kinds and "box" in int_kinds
-    assert 2 <= len(int_kinds) <= 24
-    for row, k in zip(int_rec, int_kinds):
-        if k == "sphere":
-            c = row[pt.R_C0:pt.R_C0 + 3]
-            if abs(row[pt.R_RADIUS] - 70.0) < 1e-3:
-                np.testing.assert_allclose(c, [360, 150, 145], atol=1e-3)
-    # box rows: lo < hi, ground albedo carried
-    lo, hi = box[:, pt.R_C0:pt.R_C0 + 3], box[:, pt.R_DC:pt.R_DC + 3]
-    assert (lo < hi).all()
-    np.testing.assert_allclose(box[:, pt.R_ALB_EVEN:pt.R_ALB_EVEN + 3],
-                               np.tile([0.48, 0.83, 0.53], (400, 1)),
-                               rtol=1e-6)
-    # leaf clusters tile their member tables exactly; superclusters tile
-    # the leaf rows exactly (two-level cull layout: leaves then supers)
-    # final_scene's 400 ground boxes are the reference's 20x20 grid
-    # (tests/test.rs:424-438): the box clusters are 60 z-segment strip
-    # leaves (20 strips x 3 BOX_LEAF segments) + 8 supers, and n_bclus
-    # carries (NI, NJ) for the kernel's grid strip pass
-    assert n_bclus == (60, 8, 20, 20)
-    # strip-major ordering: lo_x constant within each 20-member strip,
-    # lo_z ascending by the shared pitch
-    for i in range(20):
-        strip = box[i * 20:(i + 1) * 20]
-        assert (strip[:, pt.R_C0] == strip[0, pt.R_C0]).all()
-        assert (np.diff(strip[:, pt.R_C0 + 2]) > 0).all()
-    for clus, (n_leaf, n_sup), rows in ((sclus, n_sclus[:2], dyn),
-                                        (bclus, n_bclus[:2], box)):
-        assert len(clus) == n_leaf + n_sup and n_sup >= 1
-        for part, total in ((clus[:n_leaf], len(rows)),
-                            (clus[n_leaf:], n_leaf)):
-            spans = sorted((int(c[6]), int(c[7])) for c in part)
-            covered = []
-            for start, cnt in spans:
-                covered.extend(range(start, start + cnt))
-            assert covered == list(range(total))
-        # supercluster AABBs contain their leaves' AABBs
-        eps = 1e-2
-        for c in clus[n_leaf:]:
-            s, n = int(c[6]), int(c[7])
-            assert (c[None, :3] <= clus[s:s + n, :3] + eps).all()
-            assert (clus[s:s + n, 3:6] <= c[None, 3:6] + eps).all()
-    eps = 1e-2
-    for c in bclus[:n_bclus[0]]:
-        s, n = int(c[6]), int(c[7])
-        assert (c[None, :3] <= box[s:s + n, pt.R_C0:pt.R_C0 + 3] + eps).all()
-        assert (box[s:s + n, pt.R_DC:pt.R_DC + 3] <= c[None, 3:6] + eps).all()
-    # sphere cluster AABBs contain the swept sphere extents
-    for c in sclus[:n_sclus[0]]:
-        s, n = int(c[6]), int(c[7])
-        c0 = dyn[s:s + n, pt.R_C0:pt.R_C0 + 3]
-        c1 = c0 + dyn[s:s + n, pt.R_DC:pt.R_DC + 3]
-        r = dyn[s:s + n, pt.R_RADIUS:pt.R_RADIUS + 1]
-        assert (c[None, :3] <= np.minimum(c0, c1) - r + eps).all()
-        assert (np.maximum(c0, c1) + r <= c[None, 3:6] + eps).all()
+    with pytest.raises(pt.UnsupportedScene, match="media"):
+        pt.build_scene_table(scene)
+    ptype = np.asarray(scene.prim_type)
+    assert (ptype == 2).sum() > 2000    # 400 ground cubes as rects
 
 
 def test_earth_record_and_atlas():
-    """earth (image texture) runs in-kernel: record fields + packed atlas
-    round-trip exactly to the XLA tier's f32 texels."""
+    """earth (image texture) runs in-kernel: table fields and the flat
+    atlas hold the XLA tier's f32 texels exactly."""
     scene = builders.earth()
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
-    assert flags[4]  # has_image
-    assert rec[0, pt.R_IMG] == 1.0
+    tab, n_sph, feats, atlas, hw = pt.build_scene_table(scene)
+    assert "image" in feats
+    assert tab[0, pt.F_IMG] == 1.0 and tab[0, pt.F_IMG_ID] == 0.0
     h, w = np.asarray(scene.image_hw)[0]
-    assert rec[0, pt.R_IMG_H] == float(h)
-    assert rec[0, pt.R_IMG_W] == float(w)
-    assert rec[0, pt.R_IMG_BASE] == 0.0
-    # packed int32 atlas decodes back to the builder's f32 texels exactly
-    atlas = np.asarray(scene.images)[0]            # (H, W, 3)
-    sub = img[:h, :w]
-    dec = np.stack([(sub >> 16) & 255, (sub >> 8) & 255, sub & 255],
-                   axis=-1).astype(np.float32) / np.float32(255.0)
-    np.testing.assert_array_equal(dec, atlas[:h, :w])
-    # padded area (if any) is zero
-    assert img.shape[0] % 8 == 0 and img.shape[1] % 128 == 0
+    assert tab[0, pt.F_IMG_H] == float(h)
+    assert tab[0, pt.F_IMG_W] == float(w)
+    images = np.asarray(scene.images)
+    assert hw == images.shape[1:3]
+    np.testing.assert_array_equal(atlas.reshape(images.shape), images)
 
 
 def test_noise_scene_record():
     scene = builders.two_perlin_spheres()
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
-    assert flags == (False, False, False, True, False, False) + (False,) * 5
-    np.testing.assert_allclose(rec[:, pt.R_NOISE], 1.0)
-    np.testing.assert_allclose(rec[:, pt.R_NSCALE], 4.0)  # test.rs:186
+    tab, n_sph, feats, atlas, hw = pt.build_scene_table(scene)
+    assert feats == frozenset({"lamb", "noise", "sky"})
+    np.testing.assert_allclose(tab[:, pt.F_NOISE], 1.0)
+    np.testing.assert_allclose(tab[:, pt.F_NSCALE], 4.0)  # test.rs:186
 
 
 def test_transformed_prims_hoisted():
     """Cornell's rotated boxes arrive as world-space plane frames."""
-    scene = builders.cornell_box()
-    rec, *_ = pt.build_scene_record(scene)
-    # box faces (prims 6..18) have unit plane normals, some rotated off-axis
-    kn = rec[6:, pt.R_KN:pt.R_KN + 3]
+    tab, *_ = pt.build_scene_table(builders.cornell_box())
+    kn = tab[5:, pt.F_KN:pt.F_KN + 3]
     np.testing.assert_allclose(np.linalg.norm(kn, axis=1), 1.0, rtol=1e-5)
     off_axis = np.sum((np.abs(kn) > 1e-6).sum(axis=1) > 1)
     assert off_axis > 0
@@ -229,7 +126,7 @@ def test_camera_record():
 
 def test_tile_bounds_partition():
     """Every tile is rendered exactly once for any (grid, device) split —
-    the host-side contract of render_pallas's multi-chip dispatch."""
+    the host-side contract of render_pallas's multi-device dispatch."""
     for grid in (1, 2, 7, 8, 100, 101):
         for n_dev in (1, 2, 3, 8):
             b = pt.tile_bounds(grid, min(n_dev, grid))
@@ -256,41 +153,14 @@ def test_scene_record_cache_invalidation():
     assert rec4 is not rec3                       # distinct object
 
 
-def test_perm_cache_key_is_value_keyed():
-    """The cost-balance permutation cache must key on camera VALUES, not
-    id(cam): after GC a new camera can land on a recycled id, and an
-    id-keyed entry would silently serve the old camera's permutation.
-    Two value-distinct cameras — even at the same object id — must get
-    distinct keys; two value-identical cameras must share one."""
-    import gc
-
-    from raytracing_rust_tpu.ops.camera import make_camera
-
-    def rec(look_from):
-        cam = make_camera(look_from, (278, 278, 0), (0, 1, 0), 40.0, 1.0,
-                          0.1, 10.0, 0.0, 1.0)
-        r = pt.build_camera_record(cam)
-        addr = id(cam)
-        del cam
-        gc.collect()
-        return r, addr
-
-    r1, id1 = rec((278, 278, -800))
-    r2, id2 = rec((278, 278, -790))
-    r3, _ = rec((278, 278, -800))
-
-    import jax
-    devs = jax.devices()
-    args = (800, 800, 50, None, devs[:1], 4)
-    k1 = pt._perm_cache_key(r1, *args)
-    k2 = pt._perm_cache_key(r2, *args)
-    k3 = pt._perm_cache_key(r3, *args)
-    assert k1 != k2          # value-distinct cameras: distinct keys,
-    assert k1 == k3          # value-identical cameras share the probe
-    # and nothing in the key depends on object identity at all
-    assert not any(isinstance(x, int) and x in (id1, id2) for x in k1)
-    # device IDENTITY is part of the key (the cached pix_dev uploads are
-    # committed to specific devices — a same-count different-device hit
-    # would hand jit operands on the wrong chip)
-    k4 = pt._perm_cache_key(r1, 800, 800, 50, None, devs[1:2], 4)
-    assert k1 != k4
+def test_sphere_rows_precede_rects_with_original_ids():
+    """Mixed scenes: spheres occupy rows [0, n_sph), rects the rest, and
+    F_ORIG maps every row back to its original primitive exactly once
+    (the kernel's argmin tie-break compares F_ORIG)."""
+    scene = builders.simple_light()
+    tab, n_sph, *_ = pt.build_scene_table(scene)
+    ptype = np.asarray(scene.prim_type)
+    orig = tab[:, pt.F_ORIG].astype(int)
+    assert sorted(orig) == list(range(scene.num_prims))
+    assert (ptype[orig[:n_sph]] != 2).all()
+    assert (ptype[orig[n_sph:]] == 2).all()

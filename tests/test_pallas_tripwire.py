@@ -1,16 +1,13 @@
-"""CPU-side megakernel tripwire (VERDICT.md round-1 task 2).
+"""CPU-side GPU-kernel tripwire: every kernel variant must LOWER for CUDA.
 
-Round 1 shipped a kernel that failed at Python *trace* time (undefined
-names, tuple-unpack arity, pallas_call input-count mismatch) while the CPU
-suite stayed green, because nothing off-TPU ever built or traced the kernel.
-
-`jax.eval_shape` binds the `pallas_call` primitive, which traces the kernel
-body to a jaxpr WITHOUT lowering it — so the TPU-only core PRNG
-(`pltpu.prng_seed`, no CPU lowering) is never a problem, but every
-trace-time Python error in the kernel (the exact class of round-1 breakage)
-fails loudly here. Every megakernel-capable preset must trace, with and
-without the optional features (media, dynamic loop, russian roulette,
-multi-tile grids).
+`jax.jit(f).trace(...).lower(lowering_platforms=("cuda",))` runs the
+Pallas → Triton lowering on a host with no card. It fails on exactly the
+class of error that only the card used to reveal: a primitive the
+Triton route does not implement (`reduce_or` from `jnp.any`), value
+slicing, a non-power-of-two load, or a plain trace-time Python error.
+Every preset and every feature combination the kernel claims must lower;
+the ones it does not claim must raise UnsupportedScene instead. ptxas,
+registers and speed are the card's to judge (chip_smoke.py).
 """
 
 import jax
@@ -19,92 +16,68 @@ import numpy as np
 import pytest
 
 from raytracing_rust_tpu.models import builders
+from raytracing_rust_tpu.models.scene import SceneBuilder, BG_BLACK
 from raytracing_rust_tpu.ops import pallas_tracer as pt
 
-# every preset the megakernel claims to support (UnsupportedScene presets
-# are asserted separately in test_pallas_record.py)
 KERNEL_PRESETS = ["two_spheres", "cornell_box", "cornell_smoke",
                   "random_spheres", "two_perlin_spheres", "simple_light",
                   "earth", "final_scene"]
+MEDIA_PRESETS = {"cornell_smoke", "final_scene"}
 
 
-def _trace(scene, nx, ny, grid, rr_depth=None):
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
+def _lower(scene, nx, ny, n_tiles, rr_depth=None):
+    """Lower the forward kernel for CUDA → the lowered module's text."""
+    tab, n_sph, feats, atlas, hw = pt.build_scene_table(scene)
     cam = np.zeros(pt.CAMREC, np.float32)
-    params = jnp.zeros(4, jnp.int32)
-    out = jax.eval_shape(
-        lambda r, d, b, sc, bc, m, c, p, im, at, ir: pt._trace_call(
-            r, d, b, sc, bc, m, c, p, im, at, kinds, groups, n_dyn, n_box,
-            n_sclus, n_bclus,
-            med_kinds, flags, scene.background, nx, ny, grid, False,
-            rr_depth, scene.perlin_seed,
-            # dynamic-loop scenes trace the 2D pixel-block mapping, the
-            # same choice render_pallas makes
-            (128, pt.TILE // 128) if (n_dyn or n_box) else None,
-            False, None, ir, int_kinds, attr_fields),
-        jnp.asarray(rec), jnp.asarray(dyn), jnp.asarray(box),
-        jnp.asarray(sclus), jnp.asarray(bclus), jnp.asarray(med),
-        jnp.asarray(cam), params, jnp.asarray(img), jnp.asarray(attr),
-        jnp.asarray(int_rec))
-    assert out.shape == (3, grid * pt.SUB, pt.LANES)
+    params = np.asarray([0, 0, 4, 0], np.int32)
+    f = lambda t, c, p, a: pt._trace_call(
+        t, c, p, a, n_sph=n_sph, feats=feats, nx=nx, ny=ny, max_depth=50,
+        rr_depth=rr_depth, perlin_seed=scene.perlin_seed, atlas_hw=hw,
+        n_tiles=n_tiles)
+    out = jax.eval_shape(f, tab, cam, params, atlas)
+    assert out.shape == (3, n_tiles * pt.BLOCK)
     assert out.dtype == jnp.float32
+    low = jax.jit(f).trace(tab, cam, params, atlas).lower(
+        lowering_platforms=("cuda",))
+    text = low.as_text()
+    assert "rt_forward" in text
+    return text
 
 
 @pytest.mark.parametrize("name", KERNEL_PRESETS)
 def test_kernel_traces(name):
-    _trace(builders.PRESETS[name].build(), nx=256, ny=128, grid=4)
+    scene = builders.PRESETS[name].build()
+    if name in MEDIA_PRESETS:
+        with pytest.raises(pt.UnsupportedScene, match="media"):
+            pt.build_scene_table(scene)
+        return
+    _lower(scene, nx=256, ny=128, n_tiles=4)
 
 
 def test_kernel_traces_with_rr_and_multitile():
-    # russian-roulette branch + >1 tile grid + non-multiple-of-TILE image
-    _trace(builders.cornell_box(), nx=200, ny=200, grid=5, rr_depth=6)
+    # russian-roulette branch + several tiles + an image that is not a
+    # multiple of BLOCK pixels
+    _lower(builders.cornell_box(), nx=200, ny=200, n_tiles=5, rr_depth=6)
 
 
 def test_kernel_traces_multipixel_banks():
-    """kpix > 1: per-lane pixel banks, bank-masked accumulators, and the
-    (kpix·SUB)-row output block must trace (the balanced path's layout
-    at production image sizes)."""
-    scene = builders.PRESETS["final_scene"].build()
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
-    cam = np.zeros(pt.CAMREC, np.float32)
-    params = jnp.zeros(4, jnp.int32)
-    grid, kpix = 3, 4
-    pix = jnp.zeros((grid * kpix * pt.SUB, pt.LANES), jnp.int32)
-    out = jax.eval_shape(
-        lambda r, d, b, sc, bc, m, c, p, im, at, ir, px: pt._trace_call(
-            r, d, b, sc, bc, m, c, p, im, at, kinds, groups, n_dyn, n_box,
-            n_sclus, n_bclus, med_kinds, flags, scene.background,
-            400, 400, grid, False, None, scene.perlin_seed, None,
-            False, px, ir, int_kinds, attr_fields, kpix),
-        jnp.asarray(rec), jnp.asarray(dyn), jnp.asarray(box),
-        jnp.asarray(sclus), jnp.asarray(bclus), jnp.asarray(med),
-        jnp.asarray(cam), params, jnp.asarray(img), jnp.asarray(attr),
-        jnp.asarray(int_rec), pix)
-    assert out.shape == (3, grid * kpix * pt.SUB, pt.LANES)
-    assert out.dtype == jnp.float32
+    """A large table (3,000 spheres) runs through the same dynamic
+    primitive loop and per-lane winner gathers as a small one."""
+    _lower(builders.big_spheres(3000), nx=64, ny=64, n_tiles=2)
 
 
 def test_kernel_traces_textured_dynamic_prims():
-    """No preset puts checker/noise/image textures or movers in the
-    DYNAMIC loop (their textured prims are unrolled heroes), so the
-    compact attribute table's full-field path — A_T0/A_INVDT lerp,
-    A_PARAM, and every extra band — only traces through this synthetic
-    scene."""
-    from raytracing_rust_tpu.models.scene import SceneBuilder, BG_SKY
-    b = SceneBuilder(background=BG_SKY)
+    """Checker, noise and image textures, metal and moving spheres mixed
+    in one 120-sphere table: every texture gather and the moving-center
+    lerp in both the loop and the winner resolve."""
+    b = SceneBuilder()
     rng = np.random.default_rng(3)
     checker = b.lambertian(b.checker(b.solid(0.2, 0.3, 0.1),
                                      b.solid(0.9, 0.9, 0.9)))
     noise = b.lambertian(b.noise(2.0))
-    # the in-kernel atlas requires 8-bit-exact texels
-    texels = np.rint(rng.uniform(26, 230, (8, 16, 3))).astype(np.float32)
-    img = b.lambertian(b.image((texels / 255.0).astype(np.float32)))
+    img = b.lambertian(b.image(_texels()))
     metal = b.metal(b.solid(0.8, 0.7, 0.6), 0.2)
-    for i in range(120):   # > UNROLL_BUDGET, uniform radii (no heroes)
+    for i in range(120):
         mat = (checker, noise, img, metal)[i % 4]
         c = rng.uniform(-10, 10, 3)
         if i % 7 == 0:
@@ -112,157 +85,75 @@ def test_kernel_traces_textured_dynamic_prims():
                             0.5, mat)
         else:
             b.sphere(tuple(c), 0.5, mat)
-    _trace(b.build(), nx=256, ny=128, grid=4)
+    scene = b.build()
+    feats = pt.build_scene_table(scene)[2]
+    assert {"checker", "noise", "image", "metal", "moving"} <= feats
+    _lower(scene, nx=256, ny=128, n_tiles=4)
 
 
-def test_render_pallas_host_path_cpu_interpret():
-    """Drive render_pallas end-to-end host logic (grid math, device split,
-    spp chunking, gamma) — everything up to and around the kernel — by
-    monkeypatching the jitted _trace_call with a shape-faithful stub.
+def _fake_trace_factory(calls):
+    """Shape-faithful stand-in for _trace_call: each lane returns its own
+    pixel id times the chunk's spp, so the host assembly is checkable."""
+    def fake(tab, cam, params, atlas, *, n_sph, feats, nx, ny, max_depth,
+             rr_depth, perlin_seed, atlas_hw, n_tiles, interpret=False):
+        seed, s0, spp, tile0 = (int(x) for x in np.asarray(params))
+        calls.append((s0, spp, tile0, n_tiles))
+        pix = np.minimum((tile0 * pt.BLOCK
+                          + np.arange(n_tiles * pt.BLOCK)), nx * ny - 1)
+        v = pix.astype(np.float32) / (4.0 * nx * ny) * spp
+        return jnp.asarray(np.broadcast_to(v, (3, v.size)))
+    return fake
 
-    This pins the host-side names (grid, n_pix, per-device bounds) that
-    round 1 deleted by accident.
-    """
+
+def test_render_pallas_host_path_cpu_interpret(monkeypatch):
+    """render_pallas host logic — tile grid, device split, spp chunking,
+    gamma — around a shape-faithful stub of the kernel."""
+    calls = []
+    monkeypatch.setattr(pt, "_trace_call", _fake_trace_factory(calls))
     scene = builders.two_spheres()
     cam = builders.PRESETS["two_spheres"].camera()
-    real = pt._trace_call
-
-    def fake_trace(rec, dyn, box, sclus, bclus, med, camr, params, img,
-                   attr, kinds, groups, n_dyn, n_box, n_sclus, n_bclus,
-                   med_kinds, flags, background, nx, ny, grid,
-                   interpret=False, rr_depth=None, perlin_seed=0,
-                   block=None, stats=False, pix=None,
-                   int_rec=None, int_kinds=(),
-                   attr_fields=(), kpix=1, dda=False):
-        spp = int(params[1])
-        return jnp.full((3, grid * pt.SUB, pt.LANES), 0.25 * spp,
-                        jnp.float32)
-
-    pt._trace_call = fake_trace
-    try:
-        img = pt.render_pallas(scene, cam, nx=160, ny=90, spp=8,
-                               spp_chunk=4, devices=jax.devices("cpu")[:2])
-    finally:
-        pt._trace_call = real
+    img = pt.render_pallas(scene, cam, nx=160, ny=90, spp=8, spp_chunk=4,
+                           devices=jax.devices("cpu")[:2])
     assert img.shape == (90, 160, 3)
-    # sums/spp = 0.25 → sqrt = 0.5 everywhere
-    np.testing.assert_allclose(img, 0.5, atol=1e-6)
-
-
-def test_block_mapping_assembly_bijection():
-    """The 2D pixel-block lane mapping (kernel) and the de-block assembly
-    (host) must be exact inverses, including edge clamping, padding crop,
-    and multi-device tile splits. The stub reproduces the kernel's
-    mapping formula in numpy and emits each lane's pixel index; every
-    image pixel must receive exactly its own index back."""
-    scene = builders.random_spheres()   # n_dyn > 0 → block mapping
-    cam = builders.PRESETS["random_spheres"].camera()
-    nx, ny = 200, 90                    # non-multiples: clamp + crop
-    n_pix = nx * ny
-    real = pt._trace_call
-
-    def fake_trace(rec, dyn, box, sclus, bclus, med, camr, params, img,
-                   attr, kinds, groups, n_dyn, n_box, n_sclus, n_bclus,
-                   med_kinds, flags, background, nx_, ny_, grid,
-                   interpret=False, rr_depth=None, perlin_seed=0,
-                   block=None, stats=False, pix=None,
-                   int_rec=None, int_kinds=(),
-                   attr_fields=(), kpix=1, dda=False):
-        assert block is not None
-        bxw, byh = block
-        assert bxw * byh == pt.TILE
-        gx = -(-nx_ // bxw)
-        g0 = int(params[3])
-        lane = np.arange(pt.TILE).reshape(pt.SUB, pt.LANES)
-        out = np.zeros((3, grid * pt.SUB, pt.LANES), np.float32)
-        for t in range(grid):
-            by_t, bx_t = divmod(g0 + t, gx)
-            x = np.minimum(bx_t * bxw + lane % bxw, nx_ - 1)
-            y = np.minimum(by_t * byh + lane // bxw, ny_ - 1)
-            out[:, t * pt.SUB:(t + 1) * pt.SUB, :] = \
-                (y * nx_ + x) / (4.0 * nx_ * ny_)
-        return jnp.asarray(out)
-
-    pt._trace_call = fake_trace
-    try:
-        img = pt.render_pallas(scene, cam, nx=nx, ny=ny, spp=1,
-                               devices=jax.devices("cpu")[:2])
-    finally:
-        pt._trace_call = real
-    expect = np.sqrt(np.arange(n_pix, dtype=np.float32)
-                     / (4.0 * n_pix)).reshape(ny, nx)
+    n_tiles = -(-160 * 90 // pt.BLOCK)
+    # 2 chunks × 2 devices; chunks start at absolute sample 0 and 4
+    assert sorted({c[0] for c in calls}) == [0, 4]
+    assert sum(c[3] for c in calls) == 2 * n_tiles
+    expect = np.sqrt(np.arange(160 * 90) / (4.0 * 160 * 90)).reshape(90, 160)
     np.testing.assert_allclose(img[..., 0], expect, atol=1e-6)
-    np.testing.assert_allclose(img[..., 2], expect, atol=1e-6)
 
 
-def test_balanced_scheduling_assembly_bijection():
-    """Cost-balanced mode: the probe's permutation, the per-lane pixel
-    tables handed to each device, and the host scatter must compose to
-    the identity — every pixel gets exactly its own samples back. The
-    stub serves both the stats probe (row 6 = a deterministic per-lane
-    cost pattern) and the balanced render (each lane returns its
-    assigned pixel index)."""
+def test_block_mapping_assembly_bijection(monkeypatch):
+    """Lane → pixel mapping and the host assembly are exact inverses over
+    uneven device splits and a ragged last tile: every pixel receives
+    exactly its own id back."""
+    calls = []
+    monkeypatch.setattr(pt, "_trace_call", _fake_trace_factory(calls))
     scene = builders.random_spheres()
     cam = builders.PRESETS["random_spheres"].camera()
     nx, ny = 200, 90
-    n_pix = nx * ny
-    real = pt._trace_call
-
-    def fake_trace(rec, dyn, box, sclus, bclus, med, camr, params, img,
-                   attr, kinds, groups, n_dyn, n_box, n_sclus, n_bclus,
-                   med_kinds, flags, background, nx_, ny_, grid,
-                   interpret=False, rr_depth=None, perlin_seed=0,
-                   block=None, stats=False, pix=None,
-                   int_rec=None, int_kinds=(),
-                   attr_fields=(), kpix=1, dda=False):
-        if stats:
-            out = np.zeros((7, grid * pt.SUB, pt.LANES), np.float32)
-            # arbitrary deterministic cost pattern → some permutation
-            out[6] = np.arange(grid * pt.SUB * pt.LANES) \
-                .reshape(grid * pt.SUB, pt.LANES) % 97
-            return jnp.asarray(out)
-        assert pix is not None and block is None
-        # multi-pixel banks: the out block mirrors the pix table's
-        # (kpix·SUB) rows per tile, dummy slots included
-        assert pix.shape == (grid * kpix * pt.SUB, pt.LANES)
-        p = np.minimum(np.asarray(pix), n_pix - 1).astype(np.float32)
-        # the real kernel banks the SUM over the chunk's spp samples
-        out = np.broadcast_to(p / (4.0 * n_pix) * int(params[1]),
-                              (3,) + p.shape)
-        return jnp.asarray(out)
-
-    pt._trace_call = fake_trace
-    try:
-        img = pt.render_pallas(scene, cam, nx=nx, ny=ny, spp=8,
-                               devices=jax.devices("cpu")[:2],
-                               balance=True)
-    finally:
-        pt._trace_call = real
-    # 200×90 engages kpix = min(KPIX, n_pix // TILE) ≥ 2 when RT_KPIX
-    # allows, covering the snake striping + interleaved-dummy scatter
-    expect = np.sqrt(np.arange(n_pix, dtype=np.float32)
-                     / (4.0 * n_pix)).reshape(ny, nx)
-    np.testing.assert_allclose(img[..., 1], expect, atol=1e-6)
+    img = pt.render_pallas(scene, cam, nx=nx, ny=ny, spp=1,
+                           devices=jax.devices("cpu")[:3])
+    assert len(calls) == 3 and calls[0][2] == 0
+    assert [c[2] for c in calls] == sorted(c[2] for c in calls)
+    expect = np.sqrt(np.arange(nx * ny, dtype=np.float32)
+                     / (4.0 * nx * ny)).reshape(ny, nx)
+    np.testing.assert_allclose(img[..., 2], expect, atol=1e-6)
 
 
 def test_kernel_traces_earth_compat_uv():
     """The sphere-UV compat quirk (SceneTables.compat_uv_bug) is a static
-    kernel variant — it must trace like any other."""
+    kernel variant — it must lower like any other."""
     scene = builders.earth(compat_uv_bug=True)
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
-    assert flags[6]  # compat_uv reaches the kernel's static flags
-    _trace(scene, nx=256, ny=128, grid=4)
+    assert "compat_uv" in pt.build_scene_table(scene)[2]
+    _lower(scene, nx=256, ny=128, n_tiles=4)
 
 
-# ---- feature-lattice corners (VERDICT r2 task 4) ----------------------------
-# Legal reference scenes the megakernel previously refused: DiffuseLight is
-# texture-generic (reference src/material.rs:133-151), image textures go on
-# any hittable (src/texture.rs:73-108), and Isotropic medium albedo is
-# texture-generic (src/material.rs:153-173). Each former hole gets a
-# synthetic scene that must build a record and trace; hardware parity for
-# the combined lattice scene runs in tools/tpu_parity.py.
+# ---- feature-lattice corners ------------------------------------------------
+# Legal reference scenes: DiffuseLight is texture-generic (reference
+# src/material.rs:133-151), image textures go on any hittable
+# (src/texture.rs:73-108). Each gets a synthetic scene that must build a
+# table and lower; textured media are refused with the media reason.
 
 def _texels(seed=3, h=8, w=16):
     rng = np.random.default_rng(seed)
@@ -270,31 +161,44 @@ def _texels(seed=3, h=8, w=16):
             / 255.0).astype(np.float32)
 
 
-def lattice_scene():
-    return builders.lattice_scene()
+def lattice_surfaces():
+    """builders.lattice_scene's surfaces without its media."""
+    b = SceneBuilder(background=BG_BLACK)
+    b.sphere((0, -1000, 0), 1000.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
+    b.rect("zx", -1, -1, 1, 1, 3.0,
+           b.diffuse_light(b.checker(b.solid(4, 4, 4), b.solid(1, 1, 1))),
+           flip=True)
+    b.sphere((2, 1, 0), 0.5, b.diffuse_light(b.noise(3.0)))
+    b.sphere((-2, 1, 0), 0.5, b.diffuse_light(b.image(_texels())))
+    xf = b.transform(offset=(0, 0, 1), rotate_axis="y", angle_deg=45.0)
+    b.rect("xy", -1, 0, 1, 2, -2.0, b.lambertian(b.image(_texels(4))),
+           xform=xf)
+    b.sphere((0, 1, 2), 0.8, b.lambertian(b.image(_texels(5))))
+    b._pflip[-1] = -1.0
+    xr = b.transform(rotate_axis="x", angle_deg=30.0)
+    b.sphere((0, 3, 0), 0.6, b.lambertian(b.image(_texels(6))), xform=xr)
+    return b.build()
 
 
 def test_lattice_record_flags():
-    scene = lattice_scene()
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, sclus, n_sclus, bclus,
-     n_bclus, med, med_kinds, flags, img, attr, attr_fields, int_rec,
-     int_kinds) = pt.build_scene_record(scene)
-    (has_checker, has_metal, has_diel, has_noise, has_image, dyn_moving,
-     compat_uv, emis_tex, uv_carry, img_flip, med_tex) = flags
-    assert has_checker and has_noise and has_image
-    assert emis_tex and uv_carry and img_flip and med_tex
-    assert len(med_kinds) == 3
-    # textured media never take the dense-walk fast path
-    assert all(not dense for _, dense in med_kinds)
-    # medium records carry their albedo-texture fields
-    med = np.asarray(med).reshape(-1, pt.MEDREC)
-    assert (med[:, pt.M_CHK] > 0).sum() == 1
-    assert (med[:, pt.M_NOISE] > 0).sum() == 1
-    assert (med[:, pt.M_IMG] > 0).sum() == 1
+    tab, n_sph, feats, atlas, hw = pt.build_scene_table(lattice_surfaces())
+    assert {"checker", "noise", "image", "light", "rot_uv"} <= feats
+    assert (tab[:, pt.F_IMG] > 0).sum() == 4
+    assert (tab[:, pt.F_NOISE] > 0).sum() == 1
+    assert (tab[:, pt.F_CHK] > 0).sum() == 1
+    # the flipped image sphere keeps its flip; the rotated one its R₋
+    assert (tab[:, pt.F_FLIP] < 0).any()
+    rot = tab[:, pt.F_ROT:pt.F_ROT + 9].reshape(-1, 3, 3)
+    assert not np.allclose(rot, np.eye(3), atol=1e-6)
+    np.testing.assert_allclose(rot @ rot.transpose(0, 2, 1),
+                               np.broadcast_to(np.eye(3), rot.shape),
+                               atol=1e-6)
+    with pytest.raises(pt.UnsupportedScene, match="media"):
+        pt.build_scene_table(builders.lattice_scene())
 
 
 def test_kernel_traces_lattice():
-    _trace(lattice_scene(), nx=128, ny=128, grid=2)
+    _lower(lattice_surfaces(), nx=128, ny=128, n_tiles=2)
 
 
 @pytest.mark.parametrize("hole", [
@@ -302,7 +206,6 @@ def test_kernel_traces_lattice():
     "image_rect", "image_flipped_sphere",
     "medium_checker", "medium_noise", "medium_image"])
 def test_kernel_traces_each_former_hole(hole):
-    from raytracing_rust_tpu.models.scene import SceneBuilder, BG_BLACK
     b = SceneBuilder(background=BG_BLACK)
     white = b.lambertian(b.solid(0.5, 0.5, 0.5))
     b.sphere((0, -100, 0), 99.0, white)
@@ -318,7 +221,6 @@ def test_kernel_traces_each_former_hole(hole):
         b.rect("xy", -1, 0, 1, 2, -2.0, b.lambertian(b.image(_texels())))
     elif hole == "image_flipped_sphere":
         b.sphere((0, 1, 0), 0.8, b.lambertian(b.image(_texels())))
-        # make the flip live on the image prim
         b._pflip[-1] = -1.0
     elif hole == "medium_checker":
         b.medium_sphere((0, 1, 0), 1.0, 0.5,
@@ -327,111 +229,47 @@ def test_kernel_traces_each_former_hole(hole):
         b.medium_box((-1, 0, -1), (1, 1, 1), 0.5, b.noise(2.0))
     elif hole == "medium_image":
         b.medium_sphere((0, 1, 0), 1.0, 0.5, b.image(_texels()))
-    _trace(b.build(), nx=64, ny=64, grid=1)
+    scene = b.build()
+    if hole.startswith("medium"):
+        with pytest.raises(pt.UnsupportedScene, match="media"):
+            pt.build_scene_table(scene)
+        return
+    _lower(scene, nx=64, ny=64, n_tiles=1)
 
 
 def test_kernel_traces_textured_medium_beside_image_sphere():
-    """med_tex=True + has_image=True + uv_carry=False: a checker-albedo
-    medium next to an image SPHERE (no image rect / image medium, so no
-    carried-UV registers exist). Regression: the med-event image reset
-    referenced the carried-UV registers under `if has_image:` and died
-    with UnboundLocalError at trace time."""
-    from raytracing_rust_tpu.models.scene import SceneBuilder, BG_BLACK
+    """A checker-albedo medium beside an image sphere: the scene is
+    refused as a whole (media), never rendered with the medium dropped."""
     b = SceneBuilder(background=BG_BLACK)
     b.sphere((0, -100, 0), 99.0, b.lambertian(b.solid(0.5, 0.5, 0.5)))
     b.sphere((0, 1.5, 0), 0.7, b.lambertian(b.image(_texels())))
     b.medium_sphere((0, 1, 0), 2.5, 0.3,
                     b.checker(b.solid(1, 0, 0), b.solid(0, 1, 0)))
-    scene = b.build()
-    flags = pt.build_scene_record(scene)[13]
-    has_image, uv_carry, med_tex = flags[4], flags[8], flags[10]
-    assert has_image and med_tex and not uv_carry
-    _trace(scene, nx=64, ny=64, grid=1)
+    with pytest.raises(pt.UnsupportedScene, match="media"):
+        pt.build_scene_table(b.build())
 
 
 def test_remaining_holes_fall_back_exactly():
-    """The two combinations still not worth kernel space are pinned: they
-    raise UnsupportedScene (render() falls back to the XLA tier, which
-    handles both generically)."""
-    from raytracing_rust_tpu.models.scene import SceneBuilder
-
-    # nested checker (checker child of a checker, reference
-    # src/texture.rs:27-48 is recursive)
+    """What the kernel does not cover raises UnsupportedScene (render_auto
+    and the CLI then use the XLA tier, which handles all of it)."""
+    # nested checker (reference src/texture.rs:27-48 is recursive)
     b = SceneBuilder()
     inner = b.checker(b.solid(1, 0, 0), b.solid(0, 1, 0))
     b.sphere((0, 0, 0), 1.0,
              b.lambertian(b.checker(inner, b.solid(1, 1, 1))))
     with pytest.raises(pt.UnsupportedScene, match="nested checker"):
-        pt.build_scene_record(b.build())
+        pt.build_scene_table(b.build())
 
-    # image texture on a ROTATED sphere (object normal needs the per-prim
-    # R₋ the record does not carry; rotated image RECTS are supported —
-    # their world-frame UV is rotation-aware)
+    # isotropic material on a surface (only media scatter isotropically)
     b = SceneBuilder()
-    xf = b.transform(rotate_axis="y", angle_deg=30.0)
-    b.sphere((0, 0, 0), 1.0,
-             b.lambertian(b.image(_texels())), xform=xf)
-    with pytest.raises(pt.UnsupportedScene, match="rotated sphere"):
-        pt.build_scene_record(b.build())
+    b.sphere((0, 0, 0), 1.0, b.isotropic(b.solid(1, 1, 1)))
+    with pytest.raises(pt.UnsupportedScene, match="material type"):
+        pt.build_scene_table(b.build())
 
 
 def test_rotated_image_rect_is_supported():
-    from raytracing_rust_tpu.models.scene import SceneBuilder
     b = SceneBuilder()
     xf = b.transform(offset=(0, 0, 1), rotate_axis="y", angle_deg=45.0)
     b.rect("xy", -1, -1, 1, 1, 0.0,
            b.lambertian(b.image(_texels())), xform=xf)
-    _trace(b.build(), nx=64, ny=64, grid=1)
-
-
-def test_image_cube_stays_unrolled():
-    """Image-textured cube faces must NOT merge into a box row (a box
-    winner has no rect UV frame); they render as 6 unrolled rects."""
-    from raytracing_rust_tpu.models.scene import SceneBuilder
-    rng = np.random.default_rng(0)
-    b = SceneBuilder()
-    img = b.lambertian(b.image(_texels()))
-    plain = b.lambertian(b.solid(0.5, 0.5, 0.5))
-    for i in range(20):  # push past UNROLL_BUDGET so merging is live
-        c = rng.uniform(-20, 20, 3)
-        b.cube(c, c + 1.0, plain)
-    for i in range(120):
-        c = rng.uniform(-20, 20, 3)
-        b.sphere(c, 0.3, plain)
-    b.cube((30, 0, 0), (31, 1, 1), img)
-    scene = b.build()
-    (rec, kinds, groups, dyn, n_dyn, box, n_box, *_rest
-     ) = pt.build_scene_record(scene)
-    assert n_box == 20        # plain cubes merged
-    assert kinds.count("rect") >= 6   # the image cube's faces unrolled
-
-
-def test_pix_rowcol_formula_exact_at_4k():
-    """Regression (round-3 review): the kernel's f32 reciprocal-multiply
-    lane→pixel row split (see _pix_rowcol in the kernel) misread ~834
-    rows at 3840×2160 before the ±1 fixup. This mirrors the in-kernel
-    arithmetic bit-for-bit in numpy f32 and checks exactness over every
-    pixel id of a 4K image plus a small-nx worst case."""
-    def rowcol(pix, nx):
-        pixf = pix.astype(np.float32)
-        fnx = np.float32(nx)
-        jr = np.floor((pixf + np.float32(0.5)) * np.float32(1.0 / nx))
-        ic = pixf - jr * fnx
-        jr = np.where(ic < 0, jr - np.float32(1), jr).astype(np.float32)
-        jr = np.where(ic >= fnx, jr + np.float32(1), jr).astype(np.float32)
-        return pixf - jr * fnx, jr
-
-    for nx, n in ((3840, 3840 * 2160), (7, 1 << 24)):
-        pix = np.arange(n, dtype=np.int64)
-        ic, jr = rowcol(pix, nx)
-        assert (jr.astype(np.int64) == pix // nx).all()
-        assert (ic.astype(np.int64) == pix % nx).all()
-
-
-def test_render_pallas_rejects_oversized_images():
-    """Pixel ids beyond 2^24 are not exact in f32 — render_pallas must
-    refuse (the XLA tier renders any size in blocks)."""
-    scene = builders.two_spheres()
-    cam = builders.PRESETS["two_spheres"].camera()
-    with pytest.raises(pt.UnsupportedScene, match="2\\^24"):
-        pt.render_pallas(scene, cam, 8192, 4096, 1)
+    _lower(b.build(), nx=64, ny=64, n_tiles=1)

@@ -1,5 +1,5 @@
 """Russian roulette (opt-in): unbiasedness + variance sanity (XLA tier;
-the megakernel's identical logic is covered by the TPU parity tooling)."""
+the GPU kernel's RR branch is covered by tools/parity.py's cornell_box_rr)."""
 
 import numpy as np
 import jax

@@ -109,7 +109,7 @@ def test_image_texture_vs_oracle():
 
 def test_two_images_of_different_sizes():
     """Per-image true dims: the smaller image must never sample the zero
-    padding of the shared atlas (VERDICT.md round-1 weakness 6)."""
+    padding of the shared atlas."""
     big = RT.random((8, 16, 3)).astype(np.float32)
     small = RT.random((4, 6, 3)).astype(np.float32)
     b = SceneBuilder()

@@ -1,4 +1,4 @@
-"""Measure the reference's performance class on this host (VERDICT r2 task 2).
+"""Measure the reference's performance class on this host.
 
 The reference (DrStiev/raytracing_rust) publishes no numbers and Rust cannot
 run in this environment, so `native/ref_tracer.cpp` — a faithful scalar f64

@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Render the README gallery (docs/gallery/*.png) on the megakernel.
+"""Render the README gallery (docs/gallery/*.png).
 
-All eight reference scenes at gallery resolution with high sample counts
-— the megakernel makes convergence cheap (hundreds of millions of
-primary rays/s on the fast scenes), so the gallery shows converged
-images rather than Monte-Carlo speckle.
+All eight reference scenes at gallery resolution with high sample
+counts, so the gallery shows converged images rather than Monte Carlo
+speckle (GPU kernel where it covers the scene, else the XLA tier).
 
-Run on a TPU host:  python tools/make_gallery.py [outdir]
+    python tools/make_gallery.py [outdir]
 """
 
 import os
@@ -15,11 +14,10 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_rt")
 
-
+from raytracing_rust_tpu.backend import init_compile_cache  # noqa: E402
 from raytracing_rust_tpu.models.builders import PRESETS  # noqa: E402
-from raytracing_rust_tpu.ops.pallas_tracer import render_pallas  # noqa: E402
+from raytracing_rust_tpu.render import render_auto  # noqa: E402
 from raytracing_rust_tpu.utils import image_io  # noqa: E402
 
 # (scene, nx, ny, spp): 16:9 scenes at 416x234, square scenes at 360x360;
@@ -37,6 +35,7 @@ CONFIGS = [
 
 
 def main() -> int:
+    init_compile_cache()
     outdir = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", "docs", "gallery")
     os.makedirs(outdir, exist_ok=True)
@@ -45,15 +44,12 @@ def main() -> int:
         scene = preset.build()
         cam = preset.camera()
         t0 = time.perf_counter()
-        # chunk the slow scenes so no single dispatch nears the TPU
-        # runtime watchdog (CLAUDE.md: ~2 min kills the worker)
-        chunk = 500 if name == "final_scene" else spp
-        img = render_pallas(scene, cam, nx, ny, spp, seed=0,
-                            spp_chunk=chunk)
+        img, engine = render_auto(scene, cam, nx, ny, spp, seed=0)
         dt = time.perf_counter() - t0
         path = os.path.join(outdir, f"{name}.png")
         image_io.write_png(path, img)
-        print(f"{name}: {nx}x{ny}x{spp} in {dt:.1f}s -> {path}", flush=True)
+        print(f"{name}: {nx}x{ny}x{spp} engine={engine} in {dt:.1f}s "
+              f"-> {path}", flush=True)
     return 0
 
 

@@ -4,7 +4,7 @@ Usage: python tools/multihost_worker.py <coordinator> <num_procs> <pid> <out>
 
 Each process contributes 4 virtual CPU devices; after
 `jax.distributed.initialize()` the global mesh spans 8 devices across the
-two processes, exactly like a 2-host TPU pod slice over DCN (SURVEY.md §5
+two processes, exactly like a 2-host cluster over the network (SURVEY.md §5
 "Distributed communication backend"). Runs one sharded differentiable
 train step (parallel/sharding.py train_step_sharded) and writes the
 fully-replicated loss + gradient norms as JSON (process 0 only).
